@@ -1,4 +1,4 @@
-// sketchlib.cpp — native host runtime for the TPU spaced-kmer-sketching framework.
+// sketchlib.cpp — native host runtime for the spaced-kmer-sketching framework.
 //
 // Provides (via a plain C ABI for ctypes):
 //   * spaced-seed mask generation using the real libstdc++ std::mt19937 +
@@ -366,10 +366,9 @@ void skt_sketch_batch_mt(const uint8_t* codes, int64_t n, int g,
 }
 
 // 2-bit pack: 16 codes per uint32, code i at bits 2i..2i+1 (LSB-first),
-// positions past n treated as code 0 — the exact layout
-// ops/pallas/extract.pack_genomes_np produces in numpy, hoisted to C++ so
-// the streaming ingest path packs at memory bandwidth instead of paying
-// numpy's (n/16, 16) u32 temporaries (measured seconds per 16M-nt segment).
+// positions past n treated as code 0 — the compact upload layout that
+// ops/extract.unpack_2bit expands on device, packed here at memory
+// bandwidth instead of through numpy's (n/16, 16) u32 temporaries.
 void skt_pack2bit(const uint8_t* codes, int64_t n, int64_t n_words,
                   uint32_t* out) {
     const int64_t full = std::min<int64_t>(n / 16, n_words);

@@ -1,6 +1,6 @@
-"""TPU-native spaced-seed k-mer FracMinHash sketching and ANI estimation.
+"""Spaced-seed k-mer FracMinHash sketching and ANI estimation in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the C++
+A from-scratch JAX/XLA framework with the capabilities of the C++
 reference `bensonlzl/spaced-kmer-sketching` (see SURVEY.md / PARITY.md for
 the complete component map with file:line citations).
 

@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native spaced k-mer sketching framework.
+"""Configuration for the spaced k-mer sketching framework.
 
 The reference (bensonlzl/spaced-kmer-sketching) hard-codes all of these as
 compile-time constants / literals:

@@ -38,6 +38,26 @@ def run_ids_from_lens(run_lens, total: int):
     return rid
 
 
+def unpack_2bit(p):
+    """Device inverse of utils/native.pack2bit: p (..., m) uint32 words of 16
+    2-bit codes each, LSB-first -> (..., 16*m) uint32 codes."""
+    shifts = 2 * lax.broadcasted_iota(jnp.uint32, (16,), 0)
+    codes = (p[..., None] >> shifts) & jnp.uint32(3)
+    return codes.reshape(p.shape[:-1] + (16 * p.shape[-1],))
+
+
+def run_ids_from_bounds(pos, bounds, rid0, valid_len):
+    """Per-position run ids of a compact upload: pos (..., n) int32 absolute
+    positions, bounds (..., K) int32 sorted interior run starts (padding
+    entries at or past the end never trigger), rid0 (...) int32 id of the
+    run open at position 0, valid_len (...) int32 real code count.
+    Positions at or past valid_len get -1."""
+    r = rid0[..., None].astype(jnp.int32)
+    for k in range(bounds.shape[-1]):
+        r = r + (pos >= bounds[..., k:k + 1]).astype(jnp.int32)
+    return jnp.where(pos < valid_len[..., None], r, jnp.int32(-1))
+
+
 def extract_windows(codes, run_id, window: int, mask_words) -> Tuple[tuple, jnp.ndarray]:
     """Extract canonical masked keys for every window start position.
 

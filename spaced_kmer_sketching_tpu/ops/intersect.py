@@ -1,7 +1,7 @@
 """Batched sketch-set intersection counts on device.
 
 The reference probes a hash map per element of the smaller set
-(src/kmer_set.cpp:23-41).  TPU-native replacement: sketches are SORTED
+(src/kmer_set.cpp:23-41).  Data-parallel replacement: sketches are SORTED
 unique arrays (capacity a power of two, sentinel-padded), so |A ∩ B| is a
 vectorized branchless binary search — every valid A row probes B with
 log2(cap) gather+compare steps over the 4 uint32 lanes.  This replaced an

@@ -1,9 +1,8 @@
 """64-bit integer arithmetic as pairs of uint32 lanes, in JAX.
 
-TPUs have no native 64-bit integer path worth using (Mosaic/VPU is 32-bit),
-so the boost-compatible FracMinHash (utils/boosthash.py documents the exact
-algorithms) is implemented here over (hi, lo) uint32 pairs.  Works identically
-under CPU jit (tests) and TPU jit / inside Pallas kernel bodies.
+The boost-compatible FracMinHash (utils/boosthash.py documents the exact
+algorithms) is implemented here over (hi, lo) uint32 pairs, so it runs
+under JAX's default 32-bit mode on every backend without enabling x64.
 
 A u64 is a tuple (hi, lo) of equal-shaped uint32 arrays.
 """

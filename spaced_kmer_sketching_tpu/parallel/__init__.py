@@ -1,5 +1,5 @@
 """Multi-device parallel layer: mesh sharding over genomes, pairs, and
-sequence chunks (TPU-native replacement of the reference's OpenCilk
+sequence chunks (device-mesh replacement of the reference's OpenCilk
 work-stealing layer, SURVEY.md §2.1)."""
 from .mesh import (COL_AXIS, ROW_AXIS, data_spec, make_mesh, pad_to_multiple,
                    replicated)

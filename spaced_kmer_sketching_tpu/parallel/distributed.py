@@ -1,22 +1,22 @@
 """Multi-host bring-up: jax.distributed + a global mesh.
 
 The reference has no distributed layer (single process, OpenCilk threads —
-SURVEY.md §5); this is the TPU-native scale-out path for BASELINE config 4
-(10k-genome all-pairs on a pod slice):
+SURVEY.md §5); this is the scale-out path for BASELINE config 4 (10k-genome
+all-pairs over many devices):
 
-  * every host calls `init_distributed()` (env-driven coordinator discovery
-    or explicit args), then `global_mesh()` builds the 2-D ("r", "c") mesh
-    over ALL devices in the job;
+  * every process calls `init_distributed()` (coordinator from explicit
+    args or the JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+    JAX_PROCESS_ID environment), then `global_mesh()` builds the 2-D
+    ("r", "c") mesh over ALL devices in the job;
   * the sharded entry points in parallel/ are mesh-agnostic — the same
-    shard_map programs run on a single-host mesh (tests force 8 virtual CPU
-    devices) or a multi-host slice, with XLA routing the all-pairs
-    resharding over ICI within a slice and DCN across hosts;
+    shard_map programs run on the devices of one host under one process
+    (tests force 8 virtual CPU devices) or across processes, with XLA
+    inserting the all-pairs resharding collectives;
   * sketches checkpoint per host via store.SketchStore, so an elastic
     restart resumes from saved sketches (the reference loses everything).
 
-Only one physical chip is reachable in this build environment, so
-multi-host execution is validated via the virtual-device mesh tests and
-`__graft_entry__.dryrun_multichip`; this module is the production wiring.
+Multi-process execution is validated on the CPU by
+tests/test_distributed_multiprocess.py.
 """
 from __future__ import annotations
 
@@ -33,8 +33,10 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      process_id: Optional[int] = None) -> None:
     """Initialize the jax.distributed runtime (idempotent).
 
-    With no arguments, jax reads the cluster environment (TPU pod metadata
-    or JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID)."""
+    The coordinator comes from the arguments or from
+    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID.  With
+    neither, the job is one process and nothing is initialized: no
+    cluster auto-detection runs."""
     if getattr(init_distributed, "_done", False):
         return
     kwargs = {}
@@ -50,24 +52,21 @@ def init_distributed(coordinator_address: Optional[str] = None,
             else os.environ["JAX_PROCESS_ID"])
     # initialize() must run BEFORE any backend-querying API (process_count,
     # devices, ...): touching a backend first initializes JAX single-process
-    # and initialize() then always fails, silently degrading a pod run.
-    try:
-        jax.distributed.initialize(**kwargs)
-    except (RuntimeError, ValueError) as e:
-        if "already" in str(e).lower():
-            pass  # idempotent re-init: fine in any mode
-        elif kwargs:
-            raise  # a coordinator was named (args or env): surface failures
-        # else: auto-detection probe on a machine with no cluster metadata
-        # (RuntimeError, or ValueError 'coordinator_address should be
-        # defined') — the normal single-process case
+    # and initialize() then always fails, silently degrading a multi-process
+    # run.
+    if kwargs:
+        try:
+            jax.distributed.initialize(**kwargs)
+        except (RuntimeError, ValueError) as e:
+            if "already" not in str(e).lower():
+                raise  # idempotent re-init is fine; surface other failures
     init_distributed._done = True
 
 
 def global_mesh(shape: Optional[Tuple[int, int]] = None):
     """2-D ("r", "c") mesh over every device in the (possibly multi-host)
-    job.  Prefer shapes whose "c" axis stays within one host so all-pairs
-    column gathers ride ICI and only row-block exchanges cross DCN."""
+    job.  Across hosts, prefer shapes whose "c" axis stays within one host
+    so the all-pairs column gathers stay on the host's own links."""
     return make_mesh(shape=shape, devices=jax.devices())
 
 

@@ -1,7 +1,7 @@
 """Device-mesh construction for the sharded sketching / ANI paths.
 
 The reference scales with OpenCilk work-stealing threads in one address
-space (src/kmer_set.cpp:124,179).  The TPU-native equivalent is an explicit
+space (src/kmer_set.cpp:124,179).  The JAX equivalent is an explicit
 2-D `jax.sharding.Mesh`:
 
   * axis "r" x "c" — the all-pairs intersection matrix is tiled over the

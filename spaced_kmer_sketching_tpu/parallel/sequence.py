@@ -5,8 +5,8 @@ The reference walks each sequence serially, one nucleotide per iteration
 `window` nucleotides, so the sequence splits exactly into contiguous chunks
 with a (window-1)-nt halo: each device extracts its chunk's windows
 independently after receiving the halo from its right neighbor via
-`lax.ppermute` (ring exchange over ICI), then per-chunk sketches merge with
-one all-gather + sort-unique.  This is the CP/ring analog of SURVEY.md §2.1.
+`lax.ppermute` (ring exchange between devices), then per-chunk sketches
+merge with one all-gather + sort-unique.  This is the CP/ring analog of SURVEY.md §2.1.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
+from ..ops.extract import run_ids_from_bounds, unpack_2bit
 from ..ops.sketch import SketchBatch, merge_sketches, sketch_core
 from .mesh import COL_AXIS, ROW_AXIS
 
@@ -86,16 +87,10 @@ def sequence_parallel_sketch_compact_fn(mesh: Mesh, *, window: int,
 
     def step(p_local, bounds, rid0, valid_len, mask_words):
         me = lax.axis_index(axes)
-        nwords = p_local.shape[0]
-        chunk = nwords * 16
-        shifts = (2 * lax.broadcasted_iota(jnp.uint32, (1, 16), 1))
-        codes = ((p_local[:, None] >> shifts) & jnp.uint32(3)) \
-            .reshape(chunk)
-        pos = (me * chunk
-               + lax.broadcasted_iota(jnp.int32, (chunk, 1), 0)[:, 0])
-        r = rid0[0] + jnp.sum(
-            (pos[:, None] >= bounds[None, :]).astype(jnp.int32), axis=1)
-        run_id = jnp.where(pos < valid_len[0], r, jnp.int32(-1))
+        codes = unpack_2bit(p_local)
+        chunk = codes.shape[0]
+        pos = me * chunk + lax.broadcasted_iota(jnp.int32, (chunk,), 0)
+        run_id = run_ids_from_bounds(pos, bounds, rid0[0], valid_len[0])
 
         halo_codes = lax.ppermute(codes[:halo], axes, perm=recv_from_right)
         halo_rid = lax.ppermute(run_id[:halo], axes, perm=recv_from_right)

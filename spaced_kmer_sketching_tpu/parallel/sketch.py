@@ -1,6 +1,6 @@
 """Genome-level data-parallel sketching over the device mesh.
 
-TPU-native replacement for the reference's `cilk_for` over FASTA files
+Device-mesh replacement for the reference's `cilk_for` over FASTA files
 (src/kmer_set.cpp:112-133): a batch of 2-bit-packed genomes, padded to one
 static length, is sharded over the flattened ("r", "c") mesh axes; every
 device sketches its local genomes with the same fused extract-filter-dedup
@@ -13,7 +13,7 @@ from typing import Sequence
 
 import jax
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from ..ops.sketch import SketchBatch, sketch_batch
@@ -46,7 +46,7 @@ def sharded_sketch_fn(mesh: Mesh, *, window: int, salt: int, scale: int,
 
 def sharded_sketch_compact_fn(mesh: Mesh, *, n: int, window: int, salt: int,
                               scale: int, variant: str, capacity: int):
-    """Sharded COMPACT sketch step (TPU): p (G, body/16) uint32 raw 2-bit
+    """Sharded COMPACT sketch step: p (G, body/16) uint32 raw 2-bit
     packed codes, bounds (G, K) int32 interior run starts (padded with
     body), rid0 (G,) int32, valid_len (G,) int32 — G divisible by the mesh
     size.  Each device expands ITS genomes' window planes on device

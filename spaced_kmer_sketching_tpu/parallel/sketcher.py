@@ -46,15 +46,6 @@ def _pairs_fn(mesh: Mesh):
 
 
 @functools.lru_cache(maxsize=64)
-def _seq_fn(mesh: Mesh, window: int, salt: int, scale: int, variant: str,
-            capacity: int):
-    from .sequence import sequence_parallel_sketch_fn
-    return sequence_parallel_sketch_fn(mesh, window=window, salt=salt,
-                                       scale=scale, variant=variant,
-                                       capacity=capacity)
-
-
-@functools.lru_cache(maxsize=64)
 def _seq_compact_fn(mesh: Mesh, window: int, salt: int, scale: int,
                     variant: str, capacity: int):
     from .sequence import sequence_parallel_sketch_compact_fn
@@ -95,10 +86,9 @@ class MeshSketcher(FracMinHashSketcher):
                             rid0: int, nwin: int):
         """One sequence-parallel dispatch (halo-ring chunk extraction,
         SURVEY.md §2.1 CP analog) -> replicated SketchBatch, retried on
-        capacity overflow.  With the native packer the upload is the
-        COMPACT 2-bit plane + run bounds (0.25 B/nt expanded to codes and
-        run ids ON DEVICE, parallel/sequence.py compact fn); the full-plane
-        fallback materializes O(n) uint32+int32 host arrays (8 B/nt)."""
+        capacity overflow.  The upload is the COMPACT 2-bit plane + run
+        bounds (0.25 B/nt expanded to codes and run ids ON DEVICE,
+        parallel/sequence.py compact fn)."""
         from ..utils import native
 
         cfg = self.config
@@ -108,33 +98,19 @@ class MeshSketcher(FracMinHashSketcher):
         quantum = self.mesh_size * 128
         n = pad_to_multiple(total + cfg.window, quantum)
         import jax.numpy as jnp
-        if native.available():
-            p = native.pack2bit(np.ascontiguousarray(codes_u8, np.uint8),
-                                n // 16)
-            k = 1 << max(3, int(starts.size - 1).bit_length()
-                         if starts.size else 3)
-            bounds = np.full(k, n, np.int32)
-            bounds[:starts.size] = starts
-            args = (jnp.asarray(p), jnp.asarray(bounds),
-                    jnp.asarray(np.array([rid0], np.int32)),
-                    jnp.asarray(np.array([total], np.int32)))
-            fn_of = lambda cap: _seq_compact_fn(  # noqa: E731
-                self.mesh, cfg.window, self.salt, cfg.scale,
-                cfg.hash_variant, cap)
-        else:
-            codes = np.zeros(n, dtype=np.uint32)
-            codes[:total] = codes_u8
-            run_id = np.full(n, -1, dtype=np.int32)
-            run_id[:total] = rid0
-            for i, s in enumerate(starts):
-                run_id[int(s):total] = rid0 + i + 1
-            args = (jnp.asarray(codes), jnp.asarray(run_id))
-            fn_of = lambda cap: _seq_fn(  # noqa: E731
-                self.mesh, cfg.window, self.salt, cfg.scale,
-                cfg.hash_variant, cap)
+        p = native.pack2bit(np.ascontiguousarray(codes_u8, np.uint8), n // 16)
+        k = 1 << max(3, int(starts.size - 1).bit_length()
+                     if starts.size else 3)
+        bounds = np.full(k, n, np.int32)
+        bounds[:starts.size] = starts
+        args = (jnp.asarray(p), jnp.asarray(bounds),
+                jnp.asarray(np.array([rid0], np.int32)),
+                jnp.asarray(np.array([total], np.int32)))
         capacity = cfg.capacity_for(nwin)
         while True:
-            out = fn_of(capacity)(*args, self._mask_words)
+            out = _seq_compact_fn(self.mesh, cfg.window, self.salt,
+                                  cfg.scale, cfg.hash_variant,
+                                  capacity)(*args, self._mask_words)
             raw = int(self._get(out.raw_kept).max())
             if raw <= capacity:
                 return out
@@ -372,8 +348,8 @@ class MeshSketcher(FracMinHashSketcher):
         sharded over the mesh (parallel/allpairs.mesh_all_pairs_packed):
         one replicated slab upload, device-side block presort, and the
         upper-triangle macro-tiles split across every mesh device in one
-        program — NO host rank-layout build (the round-3 path's
-        build_rank_layout cost ~23 s/config of host time).  The mesh
+        program — NO host rank-layout build (build_rank_layout is
+        host-bound).  The mesh
         analog of the reference's cilk_for over pairs
         (src/kmer_set.cpp:179); bit-identical to the single-device gram
         engines."""

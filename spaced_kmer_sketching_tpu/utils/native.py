@@ -242,8 +242,13 @@ def pack2bit(codes: np.ndarray, n_words: int) -> np.ndarray:
     word LSB-first, positions past n as code 0 — the compact upload plane
     for the device-side expansion path (ops/sketch.sketch_batch_compact)."""
     lib = get_lib()
-    assert lib is not None
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    if lib is None:
+        c = np.zeros(16 * n_words, np.uint32)
+        m = min(codes.size, c.size)
+        c[:m] = codes[:m] & 3
+        shifts = 2 * np.arange(16, dtype=np.uint32)
+        return np.bitwise_or.reduce(c.reshape(n_words, 16) << shifts, axis=1)
     out = np.empty(n_words, dtype=np.uint32)
     lib.skt_pack2bit(
         codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),

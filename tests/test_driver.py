@@ -300,10 +300,11 @@ def test_sweep_kill_and_resume_pair_level(tmp_path, monkeypatch):
 
 
 def test_pipeline_routing_gate(tmp_path, monkeypatch):
-    """The driver's one-flow routing gate: TPU-only, threshold 512, and the
-    padding-economics guard (the pipeline shapes every genome to the
-    largest file, so a heterogeneous collection stays on the two-step
-    path, which buckets genomes by padded shape)."""
+    """The driver's one-flow routing gate, chosen from the input alone:
+    more than 512 genomes, and the padding-economics guard (the pipeline
+    shapes every genome to the largest file, so a heterogeneous
+    collection stays on the two-step path, which buckets genomes by
+    padded shape).  The backend plays no part."""
     import jax
 
     from spaced_kmer_sketching_tpu.config import SketchConfig
@@ -325,32 +326,50 @@ def test_pipeline_routing_gate(tmp_path, monkeypatch):
             paths.append(str(p))
         return paths
 
+    monkeypatch.delenv("SKS_DEVICE_PIPELINE", raising=False)
     homog = mk(600, 0)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     assert _use_device_pipeline(sk, homog, "all", None)
     # below the threshold
     assert not _use_device_pipeline(sk, homog[:512], "all", None)
+    assert _use_device_pipeline(sk, homog[:513], "all", None)
     # heterogeneous: one 10x-larger genome makes padding dominate
     hetero = mk(600, 1)
     assert not _use_device_pipeline(sk, hetero, "all", None)
-    # non-TPU backends never route
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    assert not _use_device_pipeline(sk, homog, "all", None)
+    # the same decision whatever backend JAX reports
+    for backend in ("cpu", "gpu"):
+        monkeypatch.setattr(jax, "default_backend", lambda b=backend: b)
+        assert _use_device_pipeline(sk, homog, "all", None)
+        assert not _use_device_pipeline(sk, hetero, "all", None)
     # ring pairing / store-backed runs keep the two-step path
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     assert not _use_device_pipeline(sk, homog, "ring", None)
+    assert not _use_device_pipeline(sk, homog, "all", object())
+    # the environment override still wins both ways
+    monkeypatch.setenv("SKS_DEVICE_PIPELINE", "0")
+    assert not _use_device_pipeline(sk, homog, "all", None)
+    monkeypatch.setenv("SKS_DEVICE_PIPELINE", "1")
+    assert _use_device_pipeline(sk, homog[:4], "all", None)
 
 
 def test_sweep_shares_program_buckets():
-    """The 62-config reference sweep maps onto <= 4 shared dynamic-window
-    program buckets: every config's (finish_words, capacity) pair must
-    land in a handful of buckets (the per-config jit was the dominant
-    sweep cost, BASELINE_RESULTS.md r5)."""
-    from spaced_kmer_sketching_tpu.ops.sketch import finish_words
+    """The 62-config reference sweep runs one static sketch program per
+    config (window, salt and capacity are compile-time constants); the
+    persistent compile cache, not a shared program, makes reruns hot.
+    Every config's sketch program is keyed distinctly, and the all-pairs
+    key geometry still collapses into <= 4 key-word buckets."""
+    from spaced_kmer_sketching_tpu.config import SketchConfig
+    from spaced_kmer_sketching_tpu.driver import reference_sweep_schedule
+    from spaced_kmer_sketching_tpu.ops.gram import key_words_for_window
+    from spaced_kmer_sketching_tpu.utils import boosthash
+    from spaced_kmer_sketching_tpu.utils.masks import spaced_seed_mask
 
-    configs = [(10, 10)]
-    configs += [(k, k) for k in range(11, 41)]
-    configs += [(k + 10, k) for k in range(10, 41)]
+    configs = [(w, k) for w, k, _ in reference_sweep_schedule()]
     assert len(configs) == 62
-    buckets = {finish_words(w) for w, _ in configs}
+    keys = set()
+    for w, k in configs:
+        cfg = SketchConfig(window=w, k=k)
+        m = spaced_seed_mask(w, k, cfg.mask_seed)
+        salt = boosthash.fmh_salt(m.lo, m.hi, w, cfg.nonce, cfg.hash_variant)
+        keys.add((w, salt, cfg.capacity_for(1_550_000 - w + 1)))
+    assert len(keys) == 62
+    buckets = {key_words_for_window(w) for w, _ in configs}
     assert len(buckets) <= 4, buckets

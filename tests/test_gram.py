@@ -1,4 +1,4 @@
-"""MXU Gram-matrix all-pairs intersection vs sets and the C++ merge.
+"""Gram-matrix all-pairs intersection vs sets and the C++ merge.
 
 Reference semantics: per-pair hash-probe counts (src/kmer_set.cpp:23-41)
 over the ordered all-pairs list incl. self-pairs (src/generators.hpp:45-58).
@@ -86,35 +86,6 @@ def test_nonmultiple_g_and_tile_edges():
             assert mat[i, j] == len(sets[i] & sets[j])
 
 
-def test_merge_sorted_runs_with_tag():
-    # Pallas merge tree (interpret): 8 pre-sorted runs + ride-along tag
-    import jax.numpy as jnp
-    from spaced_kmer_sketching_tpu.ops.pallas.sort import merge_sorted_runs
-
-    rng = np.random.default_rng(21)
-    runs, run_elems = 8, 256
-    n = runs * run_elems
-    vals = rng.integers(0, 1 << 30, size=(runs, run_elems), dtype=np.uint32)
-    vals.sort(axis=1)
-    tag = np.broadcast_to(np.arange(runs, dtype=np.uint32)[:, None],
-                          (runs, run_elems)).copy()
-    planes = [jnp.asarray(x.reshape(n // 128, 128))
-              for x in (vals.reshape(n), np.zeros(n, np.uint32),
-                        np.zeros(n, np.uint32), np.zeros(n, np.uint32),
-                        tag.reshape(n))]
-    out = merge_sorted_runs(planes, run_elems // 128, interpret=True)
-    got_v = np.asarray(out[0]).reshape(n)
-    got_t = np.asarray(out[4]).reshape(n)
-    order = np.argsort(vals.reshape(n), kind="stable")
-    assert np.array_equal(got_v, vals.reshape(n)[order])
-    # tags must travel with their keys (keys may repeat: compare multisets
-    # per key value)
-    want_pairs = sorted(zip(vals.reshape(n).tolist(),
-                            tag.reshape(n).tolist()))
-    got_pairs = sorted(zip(got_v.tolist(), got_t.tolist()))
-    assert want_pairs == got_pairs
-
-
 @pytest.mark.parametrize("g,cap", [(8, 128), (6, 256)])
 def test_gram_ondevice_matches_sets(g, cap):
     import jax
@@ -125,7 +96,7 @@ def test_gram_ondevice_matches_sets(g, cap):
                                        wide=True)
     mat = np.asarray(gram_all_pairs_ondevice(
         jax.numpy.asarray(keys), jax.numpy.asarray(counts), chunk=128,
-        interpret=True))
+))
     for i in range(g):
         for j in range(g):
             assert mat[i, j] == len(sets[i] & sets[j]), (i, j)
@@ -142,7 +113,7 @@ def test_gram_ondevice_boundary_straddle():
     keys, counts, sets = make_sketches(rng, g, cap, shared=90, priv=20)
     mat = np.asarray(gram_all_pairs_ondevice(
         jax.numpy.asarray(keys), jax.numpy.asarray(counts), chunk=128,
-        interpret=True))
+))
     for i in range(g):
         for j in range(g):
             assert mat[i, j] == len(sets[i] & sets[j]), (i, j)
@@ -171,10 +142,10 @@ def test_gram_ondevice_key_words():
     keys, counts, sets = make_sketches(rng, g, cap, shared=60, priv=30)
     full = np.asarray(gram_all_pairs_ondevice(
         jax.numpy.asarray(keys), jax.numpy.asarray(counts), chunk=128,
-        interpret=True))
+))
     red = np.asarray(gram_all_pairs_ondevice(
         jax.numpy.asarray(keys), jax.numpy.asarray(counts), chunk=128,
-        key_words=2, interpret=True))
+        key_words=2))
     np.testing.assert_array_equal(red, full)
     for i in range(g):
         for j in range(g):
@@ -185,12 +156,12 @@ def test_gram_ondevice_key_words():
                                           wide=True)
     red3 = np.asarray(gram_all_pairs_ondevice(
         jax.numpy.asarray(keys3), jax.numpy.asarray(counts3), chunk=128,
-        key_words=3, interpret=True))
+        key_words=3))
     for i in range(g):
         for j in range(g):
             assert red3[i, j] == len(sets3[i] & sets3[j]), (i, j)
 
-    # XLA-sort fallback path with reduced words
+    # reduced words without an explicit key_bits
     redx = np.asarray(gram_all_pairs_ondevice(
         jax.numpy.asarray(keys), jax.numpy.asarray(counts), chunk=128,
         key_words=2))
@@ -214,7 +185,7 @@ def test_gram_ondevice_key_words():
         sets1.append(set(u.tolist()))
     red1 = np.asarray(gram_all_pairs_ondevice(
         jax.numpy.asarray(keys1), jax.numpy.asarray(counts), chunk=128,
-        key_words=1, interpret=True))
+        key_words=1))
     for i in range(g):
         for j in range(g):
             assert red1[i, j] == len(sets1[i] & sets1[j]), (i, j)
@@ -234,8 +205,8 @@ def test_rank_layout_bit_budget():
 
 
 def test_gram_ondevice_xla_fallback():
-    # interpret=False on a non-TPU backend takes the lax.sort fallback
-    # (word significance there must match the merge path's comparator)
+    # wide keys: word significance in the packed sort must match the
+    # 128-bit key order
     import jax
     from spaced_kmer_sketching_tpu.ops.gram import gram_all_pairs_ondevice
 
@@ -301,21 +272,21 @@ def test_gram_ondevice_key_bits_packing():
         sets.append(set(u.tolist()))
     packed = np.asarray(gram_all_pairs_ondevice(
         jax.numpy.asarray(keys), jax.numpy.asarray(counts), chunk=128,
-        key_words=2, key_bits=40, interpret=True))
+        key_words=2, key_bits=40))
     dflt = np.asarray(gram_all_pairs_ondevice(
         jax.numpy.asarray(keys), jax.numpy.asarray(counts), chunk=128,
-        key_words=2, interpret=True))
+        key_words=2))
     np.testing.assert_array_equal(packed, dflt)
     for i in range(g):
         for j in range(g):
             assert packed[i, j] == len(sets[i] & sets[j]), (i, j)
 
 
-@pytest.mark.parametrize("interpret", [True, False])
-def test_gram_pair_tiles_matches_sets(interpret):
+@pytest.mark.parametrize("key_bits", [62, 40])
+def test_gram_pair_tiles_matches_sets(key_bits):
     """Block-cache schedule: presort each block once, then batched rect
     macro-tiles from the cache — vs python sets, incl. the diagonal tile
-    (ii == jj) and empty sketches."""
+    (ii == jj) and empty sketches, at a 2-plane and a 3-plane packing."""
     import jax
     import jax.numpy as jnp
     from spaced_kmer_sketching_tpu.ops.gram import (gram_pair_tiles,
@@ -326,21 +297,32 @@ def test_gram_pair_tiles_matches_sets(interpret):
     blk, cap, nb = 128, 128, 3
     g = nb * blk
     keys, counts, sets = make_sketches(rng, g, cap, shared=80, priv=30)
+    if key_bits < 62:
+        # keep only key_bits live bits, re-sorted and deduplicated
+        for i in range(g):
+            c = counts[i]
+            u = np.unique((keys[i, :c, 0].astype(np.uint64)
+                           | (keys[i, :c, 1].astype(np.uint64) << 32))
+                          & np.uint64((1 << key_bits) - 1))
+            keys[i] = 0xFFFFFFFF
+            keys[i, :u.size, 0] = (u & 0xFFFFFFFF).astype(np.uint32)
+            keys[i, :u.size, 1] = (u >> 32).astype(np.uint32)
+            keys[i, :u.size, 2:] = 0
+            counts[i] = u.size
+            sets[i] = {(int(v), 0) for v in u}
     counts[5] = 0                         # empty sketch in block 0
     keys[5] = 0xFFFFFFFF
     sets[5] = set()
-    key_bits, gidbits = 62, 9             # 2*blk = 256 needs 9 bits
+    gidbits = 9                           # 2*blk = 256 needs 9 bits
     pw = pack_plan(key_bits, gidbits)
     cache = jnp.stack([
         presort_block_packed(jnp.asarray(keys[b * blk:(b + 1) * blk]),
-                             key_bits=key_bits, gidbits=gidbits, pw=pw,
-                             interpret=interpret)
+                             key_bits=key_bits, gidbits=gidbits, pw=pw)
         for b in range(nb)])
     ii = jnp.asarray([0, 0, 1, 0, 2], jnp.int32)
     jj = jnp.asarray([1, 2, 2, 0, 2], jnp.int32)
     tiles = np.asarray(gram_pair_tiles(cache, ii, jj, block=blk,
-                                       gidbits=gidbits,
-                                       interpret=interpret))
+                                       gidbits=gidbits))
     rs = rng.integers(0, blk, size=(40, 2))
     for p, (bi, bj) in enumerate(zip([0, 0, 1, 0, 2], [1, 2, 2, 0, 2])):
         for a, b in rs:
@@ -414,24 +396,3 @@ def test_blocked_gram_tight_slab_matches_tile():
     got = blocked_all_pairs(mesh, keys, counts, block=128, engine="gram",
                             key_words=2, key_bits=kb)
     np.testing.assert_array_equal(got, want)
-
-
-def test_fused_scan_gate_honors_i8_knob(monkeypatch):
-    """SKS_GRAM_MM=i8 targets the XLA chunk scan's matmul dtype, so the
-    engine gate must route to the XLA scan when it is set (ADVICE r4: the
-    knob was silently ignored under the default fused engine and A/B
-    measurements got mislabeled)."""
-    from spaced_kmer_sketching_tpu.ops import gram
-
-    monkeypatch.setattr(gram, "_TILE_SCAN", "fused")
-    monkeypatch.setattr(gram, "_GRAM_MM", "bf16")
-    assert gram._use_fused_scan(128, 9, 256, interpret=True)
-    monkeypatch.setattr(gram, "_GRAM_MM", "i8")
-    assert not gram._use_fused_scan(128, 9, 256, interpret=True)
-    monkeypatch.setattr(gram, "_GRAM_MM", "bf16")
-    # structural fallbacks unchanged
-    assert not gram._use_fused_scan(64, 9, 256, interpret=True)
-    assert not gram._use_fused_scan(128, 11, 256, interpret=True)
-    assert not gram._use_fused_scan(128, 9, 2048, interpret=True)
-    monkeypatch.setattr(gram, "_TILE_SCAN", "xla")
-    assert not gram._use_fused_scan(128, 9, 256, interpret=True)

@@ -271,7 +271,7 @@ def test_blocked_all_pairs_matches_tile():
     got2 = blocked_all_pairs(mesh, provider, g, block=8)
     np.testing.assert_array_equal(got2, want)
 
-    # the TPU macro-tile engine (stacked on-device Gram, upper-triangle
+    # the macro-tile Gram engine (stacked on-device Gram, upper-triangle
     # sweep with symmetric fill) must agree tile-for-tile
     got3 = blocked_all_pairs(mesh, provider, g, block=8, engine="gram")
     np.testing.assert_array_equal(got3, want)
@@ -294,7 +294,7 @@ def test_blocked_all_pairs_matches_tile():
 
 
 def test_sharded_gram_matches_sets(mesh, genomes):
-    """MXU Gram all-pairs with union tiles sharded over the mesh equals
+    """Gram all-pairs with union tiles sharded over the mesh equals
     the Python set intersections (and thus the probe engine above)."""
     from spaced_kmer_sketching_tpu.ops.gram import build_rank_layout
     from spaced_kmer_sketching_tpu.parallel.allpairs import sharded_gram_fn

@@ -189,7 +189,7 @@ def test_driver_mesh_pipeline_csv_byte_identical(tmp_path, monkeypatch):
 def test_pipeline_capacity_overflow_retry():
     """A deliberately tiny sketch_capacity forces the pipeline's
     _CapacityOverflow retry (raised mid-sketch from the per-block
-    finalize since r5); the retried run must match the uncapped run
+    finalize); the retried run must match the uncapped run
     exactly."""
     cfg_small = SketchConfig(window=20, k=16, scale=20, sketch_capacity=256)
     cfg_auto = SketchConfig(window=20, k=16, scale=20)

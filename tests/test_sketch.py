@@ -100,80 +100,49 @@ def test_capacity_overflow_reported():
     assert raw > 256  # caller must retry with bigger capacity
 
 
+def _native_keys(codes_u8, run_lens, mask, window, salt, scale):
+    """Native C++ scalar sketch as (count, 4) uint32 key lanes."""
+    ref = native.sketch_codes(codes_u8, np.asarray(run_lens, np.int64),
+                              mask.lo, mask.hi, window, salt, scale,
+                              legacy=False)
+    out = np.empty((ref.shape[0], 4), np.uint32)
+    for q in range(4):
+        out[:, q] = (ref[:, q // 2] >> np.uint64(32 * (q % 2))).astype(
+            np.uint32)
+    return out
+
+
+@pytest.mark.skipif(not native.available(), reason="native lib unavailable")
 @pytest.mark.parametrize("window,k", [(10, 10), (16, 12), (20, 16),
                                       (33, 20), (50, 30), (64, 40)])
 def test_kw_finish_matches_xla_path(window, k):
-    """The key_words-reduced Pallas finish (extract kernel emits only the
-    low key words the window geometry allows; ops/sketch.finish_words) is
-    bit-identical to the plain XLA sketch path, including the 4-word
-    sentinel-tail reconstruction (_expand_keys)."""
-    from spaced_kmer_sketching_tpu.ops.sketch import (_sketch_batch_pallas,
-                                                      finish_words,
-                                                      sketch_batch)
-    from spaced_kmer_sketching_tpu.utils.masks import spaced_seed_mask
+    """The batched sketch step (sketch_batch, a vmap of sketch_core) is
+    bit-identical to the per-genome jitted step and to the native C++
+    scalar oracle at every key-word geometry (1 to 4 live words),
+    including the all-ones sentinel tail."""
+    from spaced_kmer_sketching_tpu.ops.sketch import sketch_batch
 
-    assert finish_words(window) == max(1, (2 * window + 31) // 32)
     mask = spaced_seed_mask(window, k, 0)
     salt = boosthash.fmh_salt(mask.lo, mask.hi, window, 1, "modern")
     rng = np.random.default_rng(window)
     g, n, cap, scale = 3, 4096, 1024, 20
     codes = rng.integers(0, 4, (g, n)).astype(np.uint32)
     run_id = np.stack([run_ids_from_lens([n], n)] * g)
-    out_p = _sketch_batch_pallas(
-        jnp.asarray(codes), jnp.asarray(run_id), jnp.asarray(mask.words_u32),
-        salt, window=window, scale=scale, variant="modern", capacity=cap,
-        interpret=True)
-    out_x = sketch_batch(
+    out = sketch_batch(
         jnp.asarray(codes), jnp.asarray(run_id), jnp.asarray(mask.words_u32),
         window=window, salt=salt, scale=scale, variant="modern", capacity=cap)
-    kp, kx = np.asarray(out_p.keys), np.asarray(out_x.keys)
-    cp, cx = np.asarray(out_p.count), np.asarray(out_x.count)
-    np.testing.assert_array_equal(cp, cx)
-    np.testing.assert_array_equal(kp, kx)       # incl. sentinel tails
-    assert np.all(kp[0, cp[0]:] == 0xFFFFFFFF)
-
-
-def test_upload_cache_identity_and_eviction(monkeypatch):
-    """The packed-upload cache returns the SAME device planes for equal
-    genome content (sweep configs reuse one upload), distinct planes for
-    different content, and evicts by byte budget."""
-    import numpy as np
-    from spaced_kmer_sketching_tpu.models import fracminhash as fm
-
-    monkeypatch.setattr(fm, "_UPLOAD_CACHE", type(fm._UPLOAD_CACHE)())
-    monkeypatch.setattr(fm, "_UPLOAD_CACHE_BYTES", [0])
-    monkeypatch.setenv("SKS_UPLOAD_CACHE_BYTES", str(1 << 30))
-
-    rng = np.random.default_rng(0)
-    codes = rng.integers(0, 4, 4096).astype(np.uint32)
-    rid = np.zeros(4096, np.int32)
-    a = fm._cached_genome_planes(codes, rid)
-    b = fm._cached_genome_planes(codes.copy(), rid.copy())
-    assert all(x is y for x, y in zip(a, b))       # content-keyed hit
-    codes2 = codes.copy()
-    codes2[7] ^= 1
-    c = fm._cached_genome_planes(codes2, rid)
-    assert a[0] is not c[0]
-    # same codes, different run boundaries -> different planes
-    rid2 = rid.copy()
-    rid2[2048:] = 1
-    d = fm._cached_genome_planes(codes, rid2)
-    assert a[0] is not d[0]
-    np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(d[0]))
-
-    # tiny budget: at most one entry retained
-    monkeypatch.setenv("SKS_UPLOAD_CACHE_BYTES", str(int(a[0].nbytes * 3.5)))
-    monkeypatch.setattr(fm, "_UPLOAD_CACHE", type(fm._UPLOAD_CACHE)())
-    monkeypatch.setattr(fm, "_UPLOAD_CACHE_BYTES", [0])
-    fm._cached_genome_planes(codes, rid)
-    fm._cached_genome_planes(codes2, rid)
-    assert len(fm._UPLOAD_CACHE) == 1              # first entry evicted
-
-    # budget 0 disables caching entirely
-    monkeypatch.setenv("SKS_UPLOAD_CACHE_BYTES", "0")
-    e = fm._cached_genome_planes(codes, rid)
-    f = fm._cached_genome_planes(codes, rid)
-    assert e[0] is not f[0]
+    keys, counts = np.asarray(out.keys), np.asarray(out.count)
+    for i in range(g):
+        one = sketch_from_codes(
+            jnp.asarray(codes[i]), jnp.asarray(run_id[i]),
+            jnp.asarray(mask.words_u32), window=window, salt=salt,
+            scale=scale, variant="modern", capacity=cap)
+        np.testing.assert_array_equal(keys[i], np.asarray(one.keys))
+        want = _native_keys(codes[i].astype(np.uint8), [n], mask, window,
+                            salt, scale)
+        assert counts[i] == want.shape[0]
+        np.testing.assert_array_equal(keys[i, :counts[i]], want)
+        assert np.all(keys[i, counts[i]:] == 0xFFFFFFFF)
 
 
 def test_sketcher_multiseed_matches_per_seed():
@@ -214,37 +183,34 @@ def test_sketcher_multiseed_matches_per_seed():
     assert [s.count for s in outs] == [0, 0]
 
 
+@pytest.mark.skipif(not native.available(), reason="native lib unavailable")
 @pytest.mark.parametrize("window,k", [(10, 10), (20, 16), (31, 21),
                                       (40, 30), (50, 40), (64, 40)])
 def test_dynwin_shared_program_matches_static(window, k):
-    """The SHARED dynamic-window sweep program (window/mask/salt as
-    runtime operands, ops/sketch.sketch_batch_packed_dyn) is bit-identical
-    to the static per-config path for every sweep bucket — including
-    multi-run genomes, where window validity near run ends must fall out
-    of the run-id compare rather than the static window count."""
-    from spaced_kmer_sketching_tpu.ops import u64ops
-    from spaced_kmer_sketching_tpu.ops.pallas.extract import pack_genomes_np
-    from spaced_kmer_sketching_tpu.ops.sketch import (finish_words,
-                                                      sketch_batch,
-                                                      sketch_batch_packed_dyn)
-    from spaced_kmer_sketching_tpu.utils.masks import spaced_seed_mask
+    """Each reference-sweep config runs its own static program through
+    FracMinHashSketcher.sketch_packed_batch, bit-identical to the native
+    oracle on multi-run genomes — window validity near run ends comes
+    from the run-id compare; repeated calls of a config reuse one cached
+    jitted program."""
+    from spaced_kmer_sketching_tpu.config import SketchConfig
+    from spaced_kmer_sketching_tpu.ingest.fasta import PackedSeqs
+    from spaced_kmer_sketching_tpu.models.fracminhash import (
+        FracMinHashSketcher)
+    from spaced_kmer_sketching_tpu.ops.sketch import jitted_sketch_batch
 
-    mask = spaced_seed_mask(window, k, 0)
-    salt = boosthash.fmh_salt(mask.lo, mask.hi, window, 1, "modern")
+    cfg = SketchConfig(window=window, k=k, scale=20)
+    sk = FracMinHashSketcher(cfg)
     rng = np.random.default_rng(window)
-    g, n, cap, scale = 3, 4096, 1024, 20
-    codes = rng.integers(0, 4, (g, n)).astype(np.uint32)
-    run_id = np.stack([run_ids_from_lens([1500, 900, n - 2400], n)] * g)
-    qc, qr, rid = pack_genomes_np(codes, run_id)
-    out_d = sketch_batch_packed_dyn(
-        jnp.asarray(qc), jnp.asarray(qr), jnp.asarray(rid),
-        jnp.asarray(mask.words_u32), jnp.asarray(u64ops.salt_pair(salt)),
-        jnp.asarray([window], np.uint32), n=n, kw=finish_words(window),
-        scale=scale, variant="modern", capacity=cap, interpret=True)
-    out_x = sketch_batch(
-        jnp.asarray(codes), jnp.asarray(run_id), jnp.asarray(mask.words_u32),
-        window=window, salt=salt, scale=scale, variant="modern", capacity=cap)
-    np.testing.assert_array_equal(np.asarray(out_d.count),
-                                  np.asarray(out_x.count))
-    np.testing.assert_array_equal(np.asarray(out_d.keys),
-                                  np.asarray(out_x.keys))
+    lens = [1500, 900, 1696]
+    packed = [PackedSeqs(codes=rng.integers(0, 4, sum(lens)).astype(np.uint8),
+                         run_lens=np.array(lens, np.int64)) for _ in range(3)]
+    got = sk.sketch_packed_batch(packed)
+    for pk, sketch in zip(packed, got):
+        want = _native_keys(pk.codes, pk.run_lens, sk.mask, window, sk.salt,
+                            cfg.scale)
+        assert sketch.count == want.shape[0]
+        np.testing.assert_array_equal(sketch.keys, want)
+    cap = cfg.capacity_for(packed[0].total_windows(window))
+    fn = jitted_sketch_batch(window, sk.salt, cfg.scale, "modern", cap)
+    assert fn is jitted_sketch_batch(window, sk.salt, cfg.scale, "modern",
+                                     cap)
